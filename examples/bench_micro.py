@@ -59,7 +59,7 @@ def main():
     dt = timeit(F.batch_inv, a)
     print(f"fr.binv  [2^{args.m}]: {dt*1e3:8.3f} ms  ({M/dt/1e6:.1f} Minv/s)")
 
-    # one sumcheck-product round (the #1 VPU loop)
+    # one sumcheck-product round (the #1 elementwise loop)
     ch = F.random((1,), 3)
     round_fn = jax.jit(lambda f, g, c: _rounds_product(F, f, g, c, 0, 1)[0][0])
     dt = timeit(round_fn, a, b, ch)

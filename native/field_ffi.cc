@@ -1,6 +1,6 @@
 // XLA FFI custom-call kernels: batched prime-field arithmetic (CPU).
 //
-// This is the native CPU execution path for fields/fr.py.  On TPU the
+// This is the native CPU execution path for fields/fr.py.  On the GPU the
 // field ops are pure-JAX limb arithmetic (fused by XLA); on the CPU
 // backend every mul/add/sub/inv lowers to ONE custom-call instruction
 // backed by 64-bit-limb Montgomery arithmetic here.  Motivation is both
@@ -829,7 +829,7 @@ inline void jac_add_auto_t(const FieldP &f, const JacP &p1, const JacP &p2,
 //    denominators: 560 ns/add vs 1320 ns for the mixed Jacobian add —
 //    the Montgomery batch trick amortizes the inversion to ~3 muls per
 //    add, and a serial two-pass product is exactly what one CPU core is
-//    good at (the written argument for why this LOSES on TPU is in
+//    good at (the written argument for why this LOSES on a lane machine is in
 //    primitives/msm.py::_msm_1d_buckets);
 //  * signed digits in [-2^(c-1), 2^(c-1)]: halves the bucket count, so
 //    the per-window reduction (the dominant term for the PCS opening

@@ -1,11 +1,13 @@
-"""Batched short-Weierstrass G1 arithmetic in Jacobian coordinates (TPU).
+"""Batched short-Weierstrass G1 arithmetic in Jacobian coordinates.
 
 Points are pytrees ``(X, Y, Z)`` of Fq limb arrays shaped ``[..., L]``
 (Jacobian: x = X/Z^2, y = Y/Z^3; Z == 0 encodes infinity).  All ops are
 complete (branch-free ``where`` selection between the generic-add,
 double, and infinity cases) so they can run under ``vmap``/``scan``/
 ``associative_scan`` with no data-dependent control flow — the shape MSM
-and PSS-over-G1 need on TPU.
+and PSS-over-G1 need on an accelerator.  On the GPU each group-law op
+is one fused CUDA kernel (cuda_kernels.py); the jnp formulas
+below are the plain form it is checked against.
 
 Formulas: standard a=0 Jacobian dbl-2009-l / add-2007-bl (the same
 family arkworks uses underneath `Projective` in the reference's
@@ -21,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..fields.config import LIMB_BITS
 from ..fields.fr import Field, get_field
 
@@ -52,7 +55,7 @@ class Curve:
         self.name = name
         # Group-law arithmetic always sits inside scans (scalar_mul bits,
         # MSM windows, tree sums), where an unrolled CIOS body per mul
-        # inflates XLA:TPU compiles to ~16 min per executable; a compact
+        # inflates compiles to minutes per executable; a compact
         # (scan-form) field keeps those bodies small (see Field.__init__).
         self.fq = get_field(fq.spec.name, compact=True)
         self.fr = fr
@@ -71,33 +74,35 @@ class Curve:
         return isinstance(other, Curve) and self.name == other.name
 
     def _ffi(self):
-        """Native CPU kernel module, or None (TPU / no toolchain).
+        """Native CPU kernel module, or None (GPU / no toolchain).
 
         On CPU, scalar_mul / sum / linear_map / MSM each lower to ONE
         custom call into 64-bit Jacobian arithmetic (native/field_ffi.cc)
         instead of a 256-iteration scan of ~40 field ops per bit — both
         a large runtime win and the difference between minutes and
         seconds of XLA:CPU compile for protocol graphs."""
-        if jax.default_backend() != "cpu":
-            return None
-        from ..fields import ffi as _ffi_mod
-
-        return _ffi_mod if _ffi_mod.available() else None
+        return backend.native_ffi()
 
     def _ffi_fid(self, ffi):
         return ffi.field_id(self.fq.spec.name)
 
-    def _pallas(self):
-        """Fused Pallas point-op kernels on TPU (curves/pallas_g1.py):
-        a whole group-law formula per kernel launch, VMEM-resident."""
-        import os
+    def _kernel(self, op: str, *pts: PointJ, mask=None):
+        """The fused point kernel for ``op`` on the GPU, else None.
 
-        if os.environ.get("SCZK_NO_PALLAS"):
+        Operands broadcast to one batch shape; returns a PointJ (plus the
+        doubling flags for ``add_reset_lazy``)."""
+        from .. import cuda_kernels
+
+        if not backend.point_kernels() or self.fq.spec.name != cuda_kernels.FQ:
             return None
-        from ..fields import pallas_fr
-        from . import pallas_g1
 
-        return pallas_g1 if pallas_fr.available() else None
+        shape = jnp.broadcast_shapes(*(p.x.shape for p in pts))
+        coords = [jnp.broadcast_to(a, shape) for p in pts for a in p]
+        if mask is not None:
+            mask = jnp.broadcast_to(mask, shape[:-1])
+        out = cuda_kernels.point_op(op, self.fq.spec.name, coords, mask=mask)
+        pt = PointJ(*out[:3])
+        return (pt, out[3]) if op == "add_reset_lazy" else pt
 
     # -- constructors ----------------------------------------------------
     def infinity(self, shape=()) -> PointJ:
@@ -140,12 +145,10 @@ class Curve:
 
     # -- core group law --------------------------------------------------
     def double(self, pt: PointJ) -> PointJ:
-        pg = self._pallas()
-        if pg is not None:
-            x, y, z = pg.point_op(
-                "double", self.fq.spec.name, (pt.x, pt.y, pt.z)
-            )
-            return PointJ(x, y, z)
+        out = self._kernel("double", pt)
+        return out if out is not None else self._double_plain(pt)
+
+    def _double_plain(self, pt: PointJ) -> PointJ:
         F = self.fq
         X, Y, Z = pt
         A = F.sqr(X)
@@ -165,13 +168,10 @@ class Curve:
         return PointJ(X3, Y3, Z3)
 
     def add(self, p1: PointJ, p2: PointJ) -> PointJ:
-        pg = self._pallas()
-        if pg is not None:
-            b = jnp.broadcast_shapes(p1.x.shape, p2.x.shape)
-            c1 = [jnp.broadcast_to(a, b) for a in p1]
-            c2 = [jnp.broadcast_to(a, b) for a in p2]
-            x, y, z = pg.point_op("add", self.fq.spec.name, (*c1, *c2))
-            return PointJ(x, y, z)
+        out = self._kernel("add", p1, p2)
+        return out if out is not None else self._add_plain(p1, p2)
+
+    def _add_plain(self, p1: PointJ, p2: PointJ) -> PointJ:
         F = self.fq
         X1, Y1, Z1 = p1
         X2, Y2, Z2 = p2
@@ -199,7 +199,7 @@ class Curve:
         is_dbl = jnp.logical_and(same_x, F.is_zero(r))[..., None]
         is_cancel = jnp.logical_and(same_x, jnp.logical_not(F.is_zero(r)))[..., None]
 
-        dbl = self.double(p1)
+        dbl = self._double_plain(p1)
 
         def sel(a, b, cond):
             return jax.tree.map(lambda u, v: jnp.where(cond, u, v), a, b)
@@ -217,13 +217,10 @@ class Curve:
         Used by the bucket-serial MSM where all input points are
         pre-normalized to affine (msm.py).
         """
-        pg = self._pallas()
-        if pg is not None:
-            x, y, z = pg.point_op(
-                "add_mixed", self.fq.spec.name,
-                (p1.x, p1.y, p1.z, p2.x, p2.y, p2.z),
-            )
-            return PointJ(x, y, z)
+        out = self._kernel("add_mixed", p1, p2)
+        return out if out is not None else self._add_mixed_plain(p1, p2)
+
+    def _add_mixed_plain(self, p1: PointJ, p2: PointJ) -> PointJ:
         F = self.fq
         X1, Y1, Z1 = p1
         X2, Y2, Z2 = p2
@@ -250,7 +247,7 @@ class Curve:
         is_dbl = jnp.logical_and(same_x, F.is_zero(r))[..., None]
         is_cancel = jnp.logical_and(same_x, jnp.logical_not(F.is_zero(r)))[..., None]
 
-        dbl = self.double(p1)
+        dbl = self._double_plain(p1)
 
         def sel(a, b, cond):
             return jax.tree.map(lambda u, v: jnp.where(cond, u, v), a, b)
@@ -262,30 +259,22 @@ class Curve:
         return out
 
     def add_mixed_masked(self, p1: PointJ, p2: PointJ, valid) -> PointJ:
-        """valid ? p1 + p2(mixed) : p1 — one fused kernel on TPU.
+        """valid ? p1 + p2(mixed) : p1 — one fused kernel on the GPU.
 
         This is the bucket-serial MSM accumulate step; fusing the select
-        avoids materializing the unselected sum through HBM."""
-        pg = self._pallas()
-        if pg is not None:
-            x, y, z = pg.point_op(
-                "add_masked", self.fq.spec.name,
-                (p1.x, p1.y, p1.z, p2.x, p2.y, p2.z), mask=valid,
-            )
-            return PointJ(x, y, z)
-        return self.select(valid, self.add_mixed(p1, p2), p1)
+        avoids materializing the unselected sum in device memory."""
+        out = self._kernel("add_masked", p1, p2, mask=valid)
+        if out is not None:
+            return out
+        return self.point_op_plain("add_masked", p1, p2, mask=valid)
 
     def add_mixed_reset(self, p1: PointJ, p2: PointJ, same) -> PointJ:
         """same ? p1 + p2(mixed) : p2 — the dense-MSM segment step
-        (one fused kernel on TPU; msm.py::_dense_bucket_sums)."""
-        pg = self._pallas()
-        if pg is not None:
-            x, y, z = pg.point_op(
-                "add_reset", self.fq.spec.name,
-                (p1.x, p1.y, p1.z, p2.x, p2.y, p2.z), mask=same,
-            )
-            return PointJ(x, y, z)
-        return self.select(same, self.add_mixed(p1, p2), p2)
+        (one fused kernel on the GPU; msm.py::_dense_bucket_sums)."""
+        out = self._kernel("add_reset", p1, p2, mask=same)
+        if out is not None:
+            return out
+        return self.point_op_plain("add_reset", p1, p2, mask=same)
 
     def add_mixed_reset_lazy(self, p1: PointJ, p2: PointJ, same):
         """(same ? p1 + p2 : p2, dbl_flag) without the doubling branch.
@@ -293,17 +282,30 @@ class Curve:
         Flagged lanes (x-collision while accumulating — probability
         ~2^-255 for distinct random points) carry garbage; the caller
         repairs them under a lax.cond that almost never runs.  The
-        non-pallas fallback computes the complete add (flag all-False).
+        plain form computes the complete add (flag all-False).
         """
-        pg = self._pallas()
-        if pg is not None:
-            x, y, z, flag = pg.point_op(
-                "add_reset_lazy", self.fq.spec.name,
-                (p1.x, p1.y, p1.z, p2.x, p2.y, p2.z), mask=same,
-            )
-            return PointJ(x, y, z), flag
-        out = self.select(same, self.add_mixed(p1, p2), p2)
-        return out, jnp.zeros(out.x.shape[:-1], bool)
+        out = self._kernel("add_reset_lazy", p1, p2, mask=same)
+        if out is not None:
+            return out
+        return self.point_op_plain("add_reset_lazy", p1, p2, mask=same)
+
+    def point_op_plain(self, op: str, p1: PointJ, p2: PointJ = None,
+                       mask=None):
+        """The jnp form of a fused kernel op (cuda_kernels.OPS): what the
+        kernel is checked against, on any backend."""
+        if op == "double":
+            return self._double_plain(p1)
+        if op == "add":
+            return self._add_plain(p1, p2)
+        s = self._add_mixed_plain(p1, p2)
+        if op == "add_mixed":
+            return s
+        if op == "add_masked":
+            return self.select(mask, s, p1)
+        out = self.select(mask, s, p2)
+        if op == "add_reset":
+            return out
+        return out, jnp.zeros(out.x.shape[:-1], bool)  # add_reset_lazy
 
     def normalize(self, pt: PointJ) -> PointJ:
         """Jacobian -> affine-or-infinity (z ∈ {0, 1}), batched.
@@ -400,19 +402,10 @@ class Curve:
                 ptb.x.shape, 1, 1,
             )
             return PointJ(ox, oy, oz)
-        pg = self._pallas()
-        if pg is not None:
-            bshape = jnp.broadcast_shapes(
-                pt.x.shape[:-1], scalar_std.shape[:-1]
-            )
-            ptb = jax.tree.map(
-                lambda a: jnp.broadcast_to(a, bshape + a.shape[-1:]), pt
-            )
-            sb = jnp.broadcast_to(scalar_std, bshape + scalar_std.shape[-1:])
-            x, y, z = pg.scalar_mul(
-                self.fq.spec.name, (ptb.x, ptb.y, ptb.z), sb
-            )
-            return PointJ(x, y, z)
+        bshape = jnp.broadcast_shapes(pt.x.shape[:-1], scalar_std.shape[:-1])
+        pt = jax.tree.map(
+            lambda a: jnp.broadcast_to(a, bshape + a.shape[-1:]), pt
+        )
         nbits = scalar_std.shape[-1] * LIMB_BITS
         bit_idx = jnp.arange(nbits - 1, -1, -1, dtype=jnp.uint32)
 

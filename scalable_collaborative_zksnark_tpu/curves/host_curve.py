@@ -2,7 +2,7 @@
 
 This is the framework's *verifier-side* engine and test oracle: exact
 arbitrary-precision arithmetic for G1/G2 group ops and the full BLS12-381
-pairing.  The prover's hot path runs on TPU (curves/g1.py, primitives/);
+pairing.  The prover's hot path runs on the GPU (curves/g1.py, primitives/);
 pairings only appear in PCS verification (a handful per proof — cf.
 dpoly_comm.rs:466-484), so a host implementation is the right tool.
 

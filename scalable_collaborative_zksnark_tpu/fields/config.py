@@ -1,4 +1,4 @@
-"""Field specifications for the TPU-native collaborative zkSNARK framework.
+"""Field specifications for the collaborative zkSNARK framework.
 
 A field element lives on-device as an array of 16-bit limbs stored in
 ``uint32`` lanes, least-significant limb first, in Montgomery form with

@@ -10,18 +10,14 @@ instruction backed by 64-bit Montgomery arithmetic in C++.  Two wins:
 * **Runtime.**  u64 CIOS with __int128 carries is ~2 orders of magnitude
   faster per element than 16-bit-limb emulation in u32 lanes on CPU.
 
-The TPU path is unaffected (pure JAX, fused by XLA).  ``available()``
-gates everything: a missing toolchain or FFI API degrades to the pure
-path.  Set ``SCZK_NO_FFI=1`` to force the pure path (used to cross-check
-both implementations in tests).
+The GPU path is unaffected (backend.py).  ``available()`` gates
+everything: a missing toolchain or FFI API degrades to the pure path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -47,31 +43,22 @@ def _lib():
 
     Returns None (and stays None for the process) on any failure.
     """
-    if os.environ.get("SCZK_NO_FFI"):
-        return None
     try:
         import jax
     except ImportError:  # pragma: no cover
         return None
     if not hasattr(jax, "ffi"):
         return None
-    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        _SO.parent.mkdir(parents=True, exist_ok=True)
-        try:
-            subprocess.run(
-                [
-                    # -O3 -funroll-loops: ~2x on the width-templated
-                    # Montgomery/curve kernels vs -O2 (measured on the
-                    # Pippenger bucket pass)
-                    "g++", "-O3", "-funroll-loops", "-fPIC", "-shared",
-                    "-std=c++17",
-                    "-march=native", f"-I{jax.ffi.include_dir()}",
-                    "-o", str(_SO), str(_SRC),
-                ],
-                check=True, capture_output=True, timeout=300,
-            )
-        except (OSError, subprocess.SubprocessError):
-            return None
+    from ..native import build_library
+
+    # -O3 -funroll-loops: ~2x on the width-templated Montgomery/curve
+    # kernels vs -O2 (measured on the Pippenger bucket pass)
+    if not build_library(
+        _SRC, _SO,
+        ["g++", "-O3", "-funroll-loops", "-fPIC", "-shared", "-std=c++17",
+         "-march=native", f"-I{jax.ffi.include_dir()}"],
+    ):
+        return None
     try:
         lib = ctypes.CDLL(str(_SO))
     except OSError:

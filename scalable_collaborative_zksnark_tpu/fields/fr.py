@@ -1,14 +1,17 @@
-"""Vectorized prime-field arithmetic on 16-bit limb vectors (TPU-native).
+"""Vectorized prime-field arithmetic on 16-bit limb vectors.
 
 Design
 ------
 Elements are ``uint32`` arrays of shape ``[..., L]`` holding 16-bit limbs
 (little-endian) in Montgomery form, R = 2**(16*L).  All operations are
-batched over the leading dimensions and are built from ``lax.scan`` over
-the limb axis so the traced HLO stays small (a Montgomery multiply is a
-single scan of L steps, not an unrolled L^2 graph) — this keeps XLA
-compile times manageable for deep protocols that chain thousands of
-multiplies (sumcheck folds, MSM point formulas).
+batched over the leading dimensions.  The ring ops are one custom call
+each where a kernel exists — the native FFI on the CPU, the CUDA field
+kernels (cuda_kernels.py) for BLS12-381 on the GPU.  The jnp limb code
+below is the plain form they are checked against and what other fields
+run; its loops come in two forms (backend.unrolled_limbs): unrolled at
+trace time, so XLA fuses a whole multiply into one elementwise kernel,
+or one ``lax.scan`` over the limb axis, whose HLO stays small (a
+``compact`` field always uses the scan).
 
 CIOS Montgomery multiply with redundant columns
 -----------------------------------------------
@@ -21,7 +24,7 @@ so over L <= 24 iterations columns stay far below 2^32 — no intermediate
 carry chains are needed.  The final value is < 2p, fixed by one
 conditional subtract.
 
-No 64-bit integers are used anywhere (TPU has no native int64).
+No 64-bit integers are used anywhere (JAX runs without x64).
 
 Why this is not a port: arkworks (the reference's L0 layer,
 /root/reference/dist-primitive/Cargo.toml:18-24) uses 64-bit limbs with
@@ -38,6 +41,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from .config import LIMB_BITS, LIMB_MASK, FieldSpec, int_to_limbs, limbs_to_int
 
 MASK = jnp.uint32(LIMB_MASK)
@@ -53,12 +57,11 @@ class Field:
 
     def __init__(self, spec: FieldSpec, compact: bool = False):
         """``compact``: always use the scan-form limb loops, regardless of
-        backend.  Unrolled CIOS is ~1.6x faster standalone on TPU, but a
-        ``lax.scan`` body containing dozens of unrolled muls (the curve
-        group law inside scalar_mul/MSM scans) produces ~100k-op HLO that
-        takes ~16 MINUTES of XLA:TPU compile; the scan form compiles in
-        seconds.  Curve ops therefore use a compact Field for their
-        internal arithmetic (curves/g1.py)."""
+        backend.  A scan body holding dozens of unrolled multiplies (the
+        group law inside scalar_mul/MSM scans) is a ~10^5-op HLO graph
+        that compiles for minutes; the scan form compiles in seconds.
+        Curve ops therefore use a compact Field for the arithmetic that
+        stays outside the fused point kernels (curves/g1.py)."""
         self.spec = spec
         self.compact = compact
         self.L = spec.num_limbs
@@ -81,33 +84,25 @@ class Field:
         self.batch_inv = jax.jit(self.batch_inv)
 
     def _ffi(self):
-        """Native CPU kernel module, or None (TPU / no toolchain).
+        """Native CPU kernel module, or None (GPU / no toolchain).
 
         On the CPU backend field ops lower to single custom-call
         instructions (native/field_ffi.cc) — both a ~100x runtime win
         and the difference between multi-GB and trivial XLA compiles
         for full-protocol graphs.  Checked at trace time.
         """
-        if jax.default_backend() != "cpu":
-            return None
-        from . import ffi as _ffi_mod
+        return backend.native_ffi()
 
-        return _ffi_mod if _ffi_mod.available() else None
+    def _gpu(self):
+        """The CUDA field kernels on the GPU for this field, or None."""
+        from .. import cuda_kernels
 
-    def _pallas(self):
-        """Pallas TPU kernel module, or None (CPU / disabled).
+        if backend.field_kernels() and self.spec.name in cuda_kernels.FIELD_IDS:
+            return cuda_kernels
+        return None
 
-        On TPU, mul/add/sub lower to single Mosaic kernels — opaque to
-        XLA (compile time) and lane-transposed inside (VPU efficiency).
-        Set SCZK_NO_PALLAS=1 to force the pure-jnp limb forms.
-        """
-        import os
-
-        if os.environ.get("SCZK_NO_PALLAS"):
-            return None
-        from . import pallas_fr as _pl_mod
-
-        return _pl_mod if _pl_mod.available() else None
+    def _scan_form(self) -> bool:
+        return self.compact or not backend.unrolled_limbs()
 
     # -- identity / hashing (stable for jit caches) ----------------------
     def __hash__(self):
@@ -175,12 +170,12 @@ class Field:
 
         ``cols``: [..., L] columns, each < ~2^31 (callers guarantee this).
         Returns (limbs, carry_out) where carry_out sits at position L.
-        Backend-dependent like ``mul``: unrolled on TPU (a lax.scan forces
-        an HBM round-trip per limb step; unrolled, XLA fuses the chain into
-        one memory pass — measured ~100x for `add`); scan on CPU, where
-        unrolled bodies inflate every enclosing scan's compile time.
+        Backend-dependent like ``mul``: unrolled on the GPU (a lax.scan
+        runs one kernel per limb step; unrolled, XLA fuses the chain into
+        one memory pass); scan on CPU, where unrolled bodies inflate every
+        enclosing scan's compile time.
         """
-        if self.compact or jax.default_backend() == "cpu":
+        if self._scan_form():
             def body(c, col):
                 s = col + c
                 return s >> LIMB_BITS, s & MASK
@@ -201,7 +196,7 @@ class Field:
 
         Returns (diff mod 2^(16L), borrow).  Backend-dependent (see _carry).
         """
-        if self.compact or jax.default_backend() == "cpu":
+        if self._scan_form():
             b = jnp.asarray(b_np, dtype=jnp.uint32)
 
             def body(borrow, ab):
@@ -236,15 +231,29 @@ class Field:
     # ------------------------------------------------------------------
     # Ring operations
     # ------------------------------------------------------------------
-    def add(self, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    def _kernel_op(self, op: str, a: jnp.ndarray, b: jnp.ndarray):
+        """``op`` as one custom call where a kernel exists, else None."""
         ffi = self._ffi()
         if ffi is not None:
             a, b = jnp.broadcast_arrays(a, b)
-            return ffi.binary("add", ffi.field_id(self.spec.name), a, b)
-        pk = self._pallas()
-        if pk is not None:
+            return ffi.binary(op, ffi.field_id(self.spec.name), a, b)
+        gk = self._gpu()
+        if gk is not None:
             a, b = jnp.broadcast_arrays(a, b)
-            return pk.binary("add", self.spec, a, b)
+            return gk.field_op(op, self.spec.name, a, b)
+        return None
+
+    def plain(self, op: str, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+        """The jnp limb form of "add" / "sub" / "mul" — what the kernels
+        are checked against, and what fields without a kernel run."""
+        return {"add": self._add_plain, "sub": self._sub_plain,
+                "mul": self._mul_plain}[op](a, b)
+
+    def add(self, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+        out = self._kernel_op("add", a, b)
+        return out if out is not None else self._add_plain(a, b)
+
+    def _add_plain(self, a, b):
         limbs, carry = self._carry(a + b)
         return self._cond_sub_p(limbs, carry)
 
@@ -252,17 +261,13 @@ class Field:
         """a - b mod p computed as (a + p) - b with per-column +2^16 bias.
 
         Backend-dependent carry chain (see _carry)."""
-        ffi = self._ffi()
-        if ffi is not None:
-            a, b = jnp.broadcast_arrays(a, b)
-            return ffi.binary("sub", ffi.field_id(self.spec.name), a, b)
-        pk = self._pallas()
-        if pk is not None:
-            a, b = jnp.broadcast_arrays(a, b)
-            return pk.binary("sub", self.spec, a, b)
+        out = self._kernel_op("sub", a, b)
+        return out if out is not None else self._sub_plain(a, b)
+
+    def _sub_plain(self, a, b):
         p = jnp.asarray(self._p_np, dtype=jnp.uint32)
         cols = a + p + (MASK + jnp.uint32(1)) - b  # each column in [1, 2^18)
-        if self.compact or jax.default_backend() == "cpu":
+        if self._scan_form():
             def body(c, col):
                 s = col + c  # c is the bias-corrected carry (may be -1)
                 return (s >> LIMB_BITS) - jnp.uint32(1), s & MASK
@@ -287,23 +292,18 @@ class Field:
     def mul(self, a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
         """Montgomery product  a * b * R^{-1} mod p  (CIOS).
 
-        Formulation is backend-dependent: on TPU the L^2 limb loop is
-        unrolled at trace time so XLA fuses the entire multiply into one
-        elementwise kernel (a lax.scan costs an HBM round-trip per limb
-        iteration, measured ~1.6x slower); on CPU the scan form is kept
-        because CPU XLA takes ~80 s to compile the ~1500-op unrolled
-        graph (vs seconds for the scan); with the native FFI kernel
-        available (the normal case) a CPU multiply is one custom-call
-        instruction (fields/ffi.py)."""
-        ffi = self._ffi()
-        if ffi is not None:
-            a, b = jnp.broadcast_arrays(a, b)
-            return ffi.binary("mul", ffi.field_id(self.spec.name), a, b)
-        pk = self._pallas()
-        if pk is not None:
-            a, b = jnp.broadcast_arrays(a, b)
-            return pk.binary("mul", self.spec, a, b)
-        if self.compact or jax.default_backend() == "cpu":
+        Backend-dependent: one custom call where a kernel exists (native
+        FFI on the CPU, fields/ffi.py; CUDA field kernel on the GPU,
+        cuda_kernels.py).  The plain form unrolls the L^2 limb loop at
+        trace time on the GPU so XLA fuses the whole multiply into one
+        elementwise kernel (a lax.scan runs one kernel per limb step), and
+        keeps the scan on the CPU, whose XLA takes ~80 s to compile the
+        ~1500-op unrolled graph."""
+        out = self._kernel_op("mul", a, b)
+        return out if out is not None else self._mul_plain(a, b)
+
+    def _mul_plain(self, a, b):
+        if self._scan_form():
             return self._mul_scan(a, b)
         return self._mul_unrolled(a, b)
 

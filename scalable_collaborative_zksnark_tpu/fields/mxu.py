@@ -1,9 +1,9 @@
-"""MXU (systolic-array) field arithmetic for shared-operand patterns.
+"""Int8 matrix-product field arithmetic for shared-operand patterns.
 
-The VPU limb kernels (pallas_fr.py) pay ~3k int32 lane-ops per
-Montgomery multiply.  The TPU's MXU does int8 x int8 -> int32 matmuls
-at two orders of magnitude higher throughput — but only contractions,
-not elementwise products.  Two patterns that dominate the sumcheck /
+The limb field multiply (fields/fr.py) pays ~3k int32 lane-ops per
+Montgomery multiply.  Matrix units (the H100's tensor cores) do int8 x
+int8 -> int32 products at far higher throughput — but only
+contractions, not elementwise products.  Two patterns that dominate the sumcheck /
 zerocheck protocol phases ARE contractions:
 
 * ``dot_red``  — sum-of-products  t = sum_i f_i * g_i  (the t0/t1/t2

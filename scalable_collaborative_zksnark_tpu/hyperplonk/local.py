@@ -8,7 +8,7 @@ Like the reference, this is a *cost-faithful simulation* of the prover's
 arithmetic — the protocol glue (virtual gate circuit, transcripts) is
 simplified identically (hyperplonk.rs:70-72).
 
-TPU shape: one device, tables [2^k, L]; the grand product h = num/den
+Array shape: one device, tables [2^k, L]; the grand product h = num/den
 uses the Montgomery batch inversion (log-depth scans) instead of the
 reference's per-element division (hyperplonk.rs:112).
 """

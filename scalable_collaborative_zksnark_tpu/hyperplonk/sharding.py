@@ -1,11 +1,11 @@
 """Multi-chip sharding of the collaborative prover state.
 
-The TPU-native replacement of the reference's process-per-party model
+The device-mesh replacement of the reference's process-per-party model
 (mpc-net TCP mesh): the MPC party dimension is a *mesh axis*.  Every
 share table is an array [N, ...] sharded ``P("party")`` over a
 ``jax.sharding.Mesh``; all cross-party movement in the protocol is a
 pure array op over that axis (unpack matrices, gathers, transposes), so
-XLA lowers it to ICI collectives — no leader bottleneck, no sockets.
+XLA lowers it to collectives — no leader bottleneck, no sockets.
 
 Helpers here split a ``PackedProvingParameters`` into a pytree of device
 arrays (so the protocol can be jitted end-to-end with explicit

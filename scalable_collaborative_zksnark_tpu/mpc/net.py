@@ -1,12 +1,12 @@
-"""Party-axis collective substrate — the TPU-native replacement of mpc-net.
+"""Party-axis collective substrate — the device-mesh replacement of mpc-net.
 
 The reference runs N = 8l MPC parties over a TCP mesh
 (/root/reference/mpc-net/src/{lib.rs,multi.rs}) with a star topology:
 gather-to-leader, scatter-from-leader, leader_compute(f) = gather→f→
-scatter, rotating-root variants, and a barrier.  On TPU the party
+scatter, rotating-root variants, and a barrier.  On the accelerator the party
 dimension is an *array axis* (shardable over a mesh axis): protocol
 state lives in arrays shaped ``[N, ...]`` and every cross-party movement
-is a pure array op that XLA lowers to ICI collectives when the party
+is a pure array op that XLA lowers to collectives when the party
 axis is sharded.  There is deliberately no socket layer to rebuild — the
 leader bottleneck disappears because ``f`` in every leader_compute of
 the reference is a linear map (unpack/sum/repack), which we fuse into

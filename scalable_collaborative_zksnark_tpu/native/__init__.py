@@ -26,18 +26,75 @@ FINAL_EXP = (P**12 - 1) // R
 _FINAL_EXP_BYTES = FINAL_EXP.to_bytes((FINAL_EXP.bit_length() + 7) // 8, "little")
 
 
+def _host_key() -> str:
+    """Identity of the CPU a ``-march=native`` build targets."""
+    import platform
+
+    key = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("model name", "flags", "Features")):
+                    key += line
+                    if line.startswith(("flags", "Features")):
+                        break
+    except OSError:
+        pass
+    return key
+
+
+def build_library(src: Path, so: Path, cmd: list, required: bool = False,
+                  deps=()) -> bool:
+    """Build ``so`` from ``src`` with ``cmd`` (compiler argv without the
+    ``-o`` output and the source) unless an existing build matches.
+
+    A build is reused only when its stamp records the same source, the
+    same command and the same host CPU: a ``-march=native`` library
+    copied from another machine is rebuilt, never loaded.  The build
+    goes to a temporary name and is renamed into place, so concurrent
+    processes never load a half-written library.  ``deps``: headers the
+    source includes (part of the stamp).  ``required``: raise with the
+    compiler's message instead of returning False."""
+    import hashlib
+    import os
+
+    h = hashlib.sha256()
+    for f in (src, *deps):
+        h.update(f.read_bytes())
+    h.update(" ".join(cmd).encode())
+    h.update(_host_key().encode())
+    want = h.hexdigest()
+    stamp = so.with_suffix(".stamp")
+    if so.exists() and stamp.exists() and stamp.read_text() == want:
+        return True
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(
+            [*cmd, "-o", str(tmp), str(src)],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, so)
+        stamp.write_text(want)
+    except (OSError, subprocess.SubprocessError) as e:
+        tmp.unlink(missing_ok=True)
+        if required:
+            msg = getattr(e, "stderr", b"") or b""
+            raise RuntimeError(
+                f"building {so.name} failed: {' '.join(cmd)} {src}\n"
+                + msg.decode(errors="replace")[-4000:]
+            ) from e
+        return False
+    return True
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
-    if not _SO.exists():
-        _SO.parent.mkdir(parents=True, exist_ok=True)
-        try:
-            subprocess.run(
-                ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-march=native",
-                 "-o", str(_SO), str(_SRC)],
-                check=True, capture_output=True, timeout=300,
-            )
-        except (OSError, subprocess.SubprocessError):
-            return None
+    if not build_library(
+        _SRC, _SO,
+        ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-march=native"],
+    ):
+        return None
     try:
         lib = ctypes.CDLL(str(_SO))
     except OSError:

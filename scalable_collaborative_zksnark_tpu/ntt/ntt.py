@@ -1,4 +1,4 @@
-"""Batched radix-2 NTT / inverse NTT over a prime field (TPU-native).
+"""Batched radix-2 NTT / inverse NTT over a prime field.
 
 Semantics mirror arkworks' ``Radix2EvaluationDomain`` (the reference's
 FFT backend for packed secret sharing, secret-sharing/src/pss.rs:43-51):
@@ -187,7 +187,7 @@ def ntt_4step(field: Field, dom: Domain, coeffs: jnp.ndarray, rows: int) -> jnp.
     A coset offset is folded in as an elementwise pre-scale
     c'_i = c_i * offset^i.  When the leading data axis is sharded over a
     mesh, the transposes become XLA ``all_to_all`` collectives and each
-    small NTT stays chip-local — the TPU-native shape of a *distributed*
+    small NTT stays chip-local — the array-native shape of a *distributed*
     NTT (replacing any mpc-net-style exchange; cf. SURVEY §5).  Output is
     in standard order, identical to ``ntt``.
     """

@@ -20,8 +20,8 @@ Parity with /root/reference/dist-primitive/src/dacc_product.rs:
   (whose output the reference discards — cost model only,
   dacc_product.rs:279-287).
 
-TPU-native shape: a tree level is one fused elementwise multiply of the
-even/odd stride halves of the level below — log2(M) VPU passes over
+Array shape: a tree level is one fused elementwise multiply of the
+even/odd stride halves of the level below — log2(M) elementwise passes over
 halving tables.  The reference's per-element loop (dacc_product.rs:309)
 becomes ``mul(cur[0::2], cur[1::2])``.  The rotating-root all-to-all is
 an axis transpose of the share tensor; the "merge" interleave

@@ -5,7 +5,7 @@ leader gathers, runs unpack2 -> pack_from_public, and scatters.  Like the
 reference (degree_reduce.rs:16) this omits the double-random-sharing
 mask — a benchmarking simplification flagged there too.
 
-TPU-native shape: unpack2∘pack is one fixed linear map along the party
+Array shape: unpack2∘pack is one fixed linear map along the party
 axis, evaluated as two batched small NTT passes — on a sharded mesh this
 is a single all-to-all-style contraction, not a leader round-trip.
 """

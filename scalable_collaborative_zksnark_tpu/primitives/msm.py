@@ -1,14 +1,14 @@
-"""Multi-scalar multiplication (MSM) on TPU + the distributed d_msm.
+"""Multi-scalar multiplication (MSM) on the accelerator + the distributed d_msm.
 
 The reference's MSM is arkworks' Pippenger (`G::msm`, dmsm.rs:19-24) —
 a serial bucket method with data-dependent indexing that does not map to
-a SIMD machine.  The TPU-native formulation here keeps Pippenger's
+a SIMD machine.  The formulation here keeps Pippenger's
 window/bucket *math* but replaces bucket scatter-accumulation with
 **sort + segmented associative scan**:
 
   per c-bit window:
     1. digit extraction (vectorized bit slicing of standard-form limbs);
-    2. sort point indices by digit (XLA bitonic sort, TPU-friendly);
+    2. sort point indices by digit (one XLA key sort);
     3. segmented inclusive scan with the group law as combiner
        (`lax.associative_scan` — O(n) point-adds at log depth);
     4. the last element of each digit-segment is that bucket's sum; a
@@ -70,10 +70,10 @@ def _signed_enabled() -> bool:
     Signed base-2^c digits lie in (-2^(c-1), 2^(c-1)], so the bucket
     count per window halves to K = 2^(c-1)+1 — the weighted reduce costs
     half at equal c, and the cost model can afford wider windows (fewer
-    accumulate adds, the prove's ALU floor — docs/PERF.md r4 item 9).
+    accumulate adds, the prove's ALU floor).
     Safe with arbitrary (even duplicated) bases: the add formulas are
     complete (P + (-P) -> infinity via the is_cancel select,
-    pallas_g1._add_t:113,121)."""
+    native/gpu_kernels.h add_pts)."""
     return os.environ.get("SCZK_MSM_SIGNED", "1") != "0"
 
 
@@ -117,7 +117,7 @@ def _seg_scan_last(curve: Curve, seg: jnp.ndarray, pts: PointJ) -> PointJ:
     run holds that segment's sum.  Expressed as a single fori_loop whose
     body contains ONE group add (kept deliberately small: XLA compile
     time of the limb-arithmetic graphs is the binding constraint; the
-    n log n vs n work trade is a good one on a machine with 8x128 lanes).
+    n log n vs n work trade is a good one on a wide lane machine).
     """
     n = seg.shape[0]
     steps = max((n - 1).bit_length(), 1)
@@ -160,21 +160,8 @@ element): the small-MSM path is one scalar_mul scan + a tree sum."""
 def _horner_windows(curve: Curve, totals: PointJ, c: int) -> PointJ:
     """Window combine res = sum_w 2^(c*w) * totals[w] ([W, C...] -> [C...]).
 
-    On TPU this is ONE fused pallas kernel (pallas_g1.horner) — the scan
-    form paid one ~0.25 ms kernel launch per double/add, ~70 ms per MSM
-    call at W = 32, c = 8."""
-    pg = curve._pallas()
-    if pg is not None:
-        W = totals.x.shape[0]
-        batch = totals.x.shape[1:-1]
-        flatC = int(np.prod(batch, dtype=np.int64)) if batch else 1
-        t3 = jax.tree.map(
-            lambda a: a.reshape(W, flatC, a.shape[-1]), totals
-        )
-        x, y, z = pg.horner(curve.fq.spec.name, (t3.x, t3.y, t3.z), c)
-        return jax.tree.map(
-            lambda a: a.reshape(batch + (a.shape[-1],)), PointJ(x, y, z)
-        )
+    A scan of W steps, each c doublings and one add (one fused kernel
+    each on the GPU)."""
     rev_tot = jax.tree.map(lambda a: a[::-1], totals)
 
     def horner(res, tot):
@@ -190,44 +177,13 @@ def _horner_windows(curve: Curve, totals: PointJ, c: int) -> PointJ:
 def _weighted_bucket_totals(curve: Curve, acc_wck: PointJ) -> PointJ:
     """sum_{k>=1} k*B_k per (window, segment): [W, C, K, L] -> [W, C, L].
 
-    Two forms, chosen by the parallel-lane count W*C:
-
-    * many segments (W*C >= SERIAL_REDUCE_MIN_LANES): ONE pallas kernel
-      with the inherently-serial bucket axis on the GRID and all (window,
-      segment) pairs on lanes (pallas_g1.bucket_serial_reduce) — the
-      running-suffix recurrence does 2(K-1) full adds at W*C lanes,
-      K/log2(K)-times less ALU work than the Hillis-Steele rounds below.
-      (An earlier kernel gridding over WINDOWS — serializing the parallel
-      axis — was 2.5x slower and is gone; see docs/PERF.md.)
-    * few segments: reversed inclusive prefix-scan then a tree sum of
-      the suffixes — ~2*log2(K) XLA add rounds at W*C*K lanes, which
-      beats the serial kernel when W*C alone cannot fill the VPU."""
-    W, C, K = acc_wck.x.shape[0], acc_wck.x.shape[1], acc_wck.x.shape[2]
-    pg = curve._pallas()
-    if pg is not None and W * C >= SERIAL_REDUCE_MIN_LANES:
-        flat = jax.tree.map(
-            lambda t: jnp.moveaxis(t, 2, 0).reshape(K, W * C, t.shape[-1]),
-            acc_wck,
-        )
-        x, y, z = pg.bucket_serial_reduce(
-            curve.fq.spec.name, (flat.x, flat.y, flat.z), K
-        )
-        return jax.tree.map(
-            lambda t: t.reshape(W, C, t.shape[-1]), PointJ(x, y, z)
-        )
+    Reversed inclusive prefix-scan, then a tree sum of the suffixes:
+    ~2*log2(K) add rounds at W*C*K lanes."""
+    K = acc_wck.x.shape[2]
     rev = jax.tree.map(lambda t: t[:, :, ::-1], acc_wck)
     pref = _prefix_scan_axis1(curve, rev, axis=2)
     suff = jax.tree.map(lambda t: t[:, :, : K - 1], pref)
     return curve.sum(suff, axis=2)
-
-
-SERIAL_REDUCE_MIN_LANES = int(os.environ.get("SCZK_SERIAL_REDUCE_MIN", "192"))
-"""Below this many (window, segment) lanes the serial-bucket kernel
-cannot fill the VPU (a [L, 128]-padded step is latency-bound) and the
-wide Hillis-Steele rounds win; above it the serial form's K vs K*log2(K)
-work advantage dominates.  The grp8 d_commit runs W*C = 256 (measured:
-~144 ms of XLA reduce rounds vs ~40 ms serial); single flat MSMs at
-W*C = 32 and the 3-poly commit at 96 stay on the XLA form."""
 
 
 def _prefix_scan_axis1(curve: Curve, pts: PointJ, axis: int = 1) -> PointJ:
@@ -250,7 +206,7 @@ def _prefix_scan_axis1(curve: Curve, pts: PointJ, axis: int = 1) -> PointJ:
 
 def _msm_1d_buckets(curve: Curve, points: PointJ, scalars_std: jnp.ndarray,
                     c: int, affine: bool = False) -> PointJ:
-    """Bucket-serial windowed Pippenger — the TPU MSM workhorse.
+    """Bucket-serial windowed Pippenger (the ``SCZK_MSM_DENSE=0`` core).
 
     Classic Pippenger does W·(N + 2^c) point-adds but relies on bucket
     scatter-accumulation.  The segmented-scan formulation (docstring at
@@ -271,7 +227,7 @@ def _msm_1d_buckets(curve: Curve, points: PointJ, scalars_std: jnp.ndarray,
     Why NOT affine-batched accumulation (the classic CPU follow-up —
     replace the Jacobian mixed add with an affine add plus a Montgomery
     batch inversion per iteration): batch inversion needs a prefix
-    product over the W*2^c accumulate lanes, and TPU's parallel prefix
+    product over the W*2^c accumulate lanes, and a parallel prefix
     (Hillis-Steele / `associative_scan`) does n*log2(n) work — at 8k
     lanes that is ~2*13 field muls per lane per iteration to save the
     ~7-mul difference between mixed-Jacobian (11M+5S) and affine
@@ -334,8 +290,8 @@ def _msm_1d(curve: Curve, points: PointJ, scalars_std: jnp.ndarray, c: int,
 
     Algorithm is chosen by static size: tiny tables use double-and-add;
     large ones the sort+scan Pippenger.  There, all ~nbits/c windows are
-    *independent*, so they run as one vmapped batch (a [W, N] lane grid —
-    the VPU-friendly shape); only the tiny Horner combine (c doublings +
+    *independent*, so they run as one vmapped batch (a [W, N] lane grid);
+    only the tiny Horner combine (c doublings +
     1 add per window on a single point) is sequential.  jitted with
     (curve, c) static: the inner scans close over the point table, so an
     un-jitted call would bake it into the jaxpr as a constant and
@@ -421,10 +377,11 @@ def _msm_1d_segscan(curve: Curve, points: PointJ, scalars_std: jnp.ndarray,
 #   4. each bucket sum = scanned value at its end position (+ lane carry
 #      when the bucket started before the lane) — pure gathers.
 # ---------------------------------------------------------------------------
-DENSE_LANES = 8192
+DENSE_LANES = 32768
 """Lanes of the dense accumulation scan: E/T steps of one [T]-wide
-mixed add.  8192 keeps the VPU tile full ([L, 8192] = 64 vregs) while
-the scan depth stays ~E/8192."""
+mixed add (one point kernel of T threads on the GPU).  On the H100 the
+lazy reset step takes 0.087 ms at 8192 lanes (64 blocks: the card is
+not full) and 0.127 ms at 32768, 2.7x less per add (PERF.md, PR 1)."""
 
 
 def _dense_bucket_sums(curve: Curve, pts_flat: PointJ, keys: jnp.ndarray,
@@ -685,7 +642,7 @@ def msm(curve: Curve, points: PointJ, scalars_std: jnp.ndarray, c: int = 8,
         Bn = int(np.prod(batch, dtype=np.int64)) if batch else 1
         # the caller's c is a hint; the dense core picks the
         # cost-model-optimal width for this workload (wider windows under
-        # signed digits cut the accumulate floor — docs/PERF.md r4 #9)
+        # signed digits cut the accumulate floor)
         if _auto_c_enabled():
             c = _pick_c_dense(Bn * N, Bn, scalars_std.shape[-1] * LIMB_BITS)
         pb = points.x.shape[:-2]
@@ -750,10 +707,8 @@ def _pick_c(max_size: int) -> int:
 def _pick_c_dense(total_n: int, n_segments: int, nbits: int = 256) -> int:
     """Window size for the dense-scan cores by explicit cost model:
     accumulation does W * total_n mixed adds (the prove's ALU floor);
-    the weighted bucket reduce does either 2*(K-1) full adds at W*C
-    lanes (serial-bucket kernel, ~3.4*W*C*K mixed-add-lane equivalents)
-    or ~1.3*W*C*K*c lane-adds (Hillis-Steele rounds) depending on the
-    runtime lane gate — model both so c tracks the executed path.
+    the weighted bucket reduce does ~1.3*W*C*K*c lane-adds (Hillis-Steele
+    rounds, _weighted_bucket_totals).
 
     Signed digits halve K to 2^(c-1)+1, which shifts the optimum toward
     wider windows — the point of the signed scheme: W (and with it the
@@ -766,10 +721,7 @@ def _pick_c_dense(total_n: int, n_segments: int, nbits: int = 256) -> int:
         K = ((1 << (c - 1)) + 1) if signed else (1 << c)
         if W * n_segments * K > (1 << 21):
             continue
-        if W * n_segments >= SERIAL_REDUCE_MIN_LANES:
-            red = 3.4 * W * n_segments * K
-        else:
-            red = 1.3 * W * n_segments * K * c
+        red = 1.3 * W * n_segments * K * c
         cost = W * total_n + red
         if best_cost is None or cost < best_cost:
             best_c, best_cost = c, cost
@@ -1104,9 +1056,9 @@ def d_msm(
     leader-side group arithmetic; leader mode additionally folds q_0
     into the same pre-scale (its fake gather tiles one party's partial,
     making the whole map the scalar q_0·Σw).  A 255-bit scalar
-    multiplication has ~2·255 sequential group-op depth (~100 ms on
-    TPU however it is batched); the fold replaces it with one VPU pass
-    over the scalar table.  Outputs are value-identical (possibly
+    multiplication has ~2·255 sequential group-op depth however it is
+    batched; the fold replaces it with one elementwise pass over the
+    scalar table.  Outputs are value-identical (possibly
     different Jacobian representatives).
     """
     scaled = _dmsm_prescale(pp, net, scalars_std)

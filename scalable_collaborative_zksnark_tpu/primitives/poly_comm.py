@@ -597,7 +597,7 @@ def _tiny_msm_rounds(curve, bases_list, scals_list):
     Each round's MSM is tiny (l/2^(i+1) points) and independent of the
     fold chain (the proofs never feed the next fold), but a per-round
     ``msm`` call pays the full 255-bit double-and-add ladder DEPTH
-    (~100 ms on TPU regardless of lane count, docs/PERF.md) — the
+    (sequential however many lanes run it) — the
     dominant cost of c_open at protocol sizes.  Concatenating every
     round's (base, q) pairs into one scalar_mul pays the depth once;
     per-round sums are a few tiny tree-add launches.

@@ -24,8 +24,7 @@ with ``challenge[n_local:]``, which makes the collaborative transcript
 verify against the same oracle as the monolithic one (see tests).
 
 All tables are arrays ``[..., M, L]`` (element axis -2, limb axis -1) so
-every round is two fused elementwise passes — the #1 VPU kernel of the
-framework.  Party-batched variants put the party axis first.
+every round is two fused elementwise passes.  Party-batched variants put the party axis first.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..fields.fr import Field
 from ..mpc.net import PartyNet
 from ..pss.pss import PackedSharingParams
@@ -54,10 +54,10 @@ def _fold(F: Field, x, ch):
 
 def _rounds_single(F: Field, cur, challenges, start, count):
     """Fold ``count`` rounds; returns (messages [count, ..., 2, L], cur)."""
-    from . import mxu_sumcheck as msc
+    if count > 0 and backend.mxu_sumcheck():
+        # int8 path: per-round sums and folds as int8 matmuls (mxu.py)
+        from . import mxu_sumcheck as msc
 
-    if count > 0 and msc.available():
-        # MXU path: per-round sums and folds as int8 matmuls (mxu.py)
         return msc.single_phase(F, cur, challenges, start, count)
     msgs = []
     for i in range(count):
@@ -70,38 +70,14 @@ def _rounds_single(F: Field, cur, challenges, start, count):
 
 
 def _rounds_product(F: Field, cur_f, cur_g, challenges, start, count):
-    """Product rounds; messages are (t0, t1, t2) triples [..., 3, L].
+    """Product rounds; messages are (t0, t1, t2) triples [..., 3, L]."""
+    if count > 0 and backend.mxu_sumcheck():
+        # int8 path: partial sums contract the eval axis as int8 matrix
+        # products; folds are shared-scalar matmuls.  Handles any count /
+        # any M (dot_red splits big batches).
+        from . import mxu_sumcheck as msc
 
-    On TPU a full fold (count == log2(M)) runs as ONE fused Pallas
-    kernel — both tables VMEM-resident for all rounds, ~6 launches +
-    HBM round-trips per round collapsed into one (VERDICT item 2)."""
-    from . import mxu_sumcheck as msc
-    from . import pallas_sumcheck as psc
-
-    M = cur_f.shape[-2]
-    if count > 0 and msc.available():
-        # MXU path first choice on TPU: partial sums contract the eval
-        # axis on the systolic array; folds are shared-scalar matmuls.
-        # Handles any count / any M (dot_red splits big batches).
         return msc.product_phase(F, cur_f, cur_g, challenges, start, count)
-    if count == M.bit_length() - 1 and count > 0 and psc.supported(M):
-        return psc.product_phase(F, cur_f, cur_g, challenges, start)
-    if (
-        count == M.bit_length() - 1
-        and M > psc.MAX_M
-        and psc.supported(psc.MAX_M)
-    ):
-        # tables too big for exact-u32 column sums in VMEM: peel rounds
-        # unfused until the table fits, then fuse the remaining fold
-        # (the bulk of the rounds) into the one-kernel phase.
-        peel = M.bit_length() - 1 - (psc.MAX_M.bit_length() - 1)
-        head, cur_f, cur_g = _rounds_product(
-            F, cur_f, cur_g, challenges, start, peel
-        )
-        tail, ff, gf = psc.product_phase(
-            F, cur_f, cur_g, challenges, start + peel
-        )
-        return head + tail, ff, gf
     msgs = []
     two = F.const(2)
     for i in range(count):

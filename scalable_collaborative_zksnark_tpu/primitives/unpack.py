@@ -11,7 +11,7 @@ Parity with /root/reference/dist-primitive/src/unpack.rs:
   l single-secret shares per party (gather 1 element, leader unpacks and
   re-shares each secret with ``pack_single``, scatter l elements).
 
-TPU-native shape: the leader's unpack→repack is a *linear map over the
+Array shape: the leader's unpack→repack is a *linear map over the
 party axis*; pss2ss in particular is the rank-1 map
 ``out[j, k] = u[j] * v[k]`` with ``v = unpack(shares)`` and ``u`` the
 single-secret packing vector — one small matrix contraction + an outer

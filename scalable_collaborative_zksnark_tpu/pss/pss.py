@@ -1,4 +1,4 @@
-"""Packed secret sharing (PSS) as batched linear maps (TPU-native).
+"""Packed secret sharing (PSS) as batched linear maps.
 
 Semantics follow the reference's ``PackedSharingParams``
 (/root/reference/secret-sharing/src/pss.rs:17-171) exactly:

@@ -5,7 +5,7 @@ with durations, gated by a global enable flag (the reference gates on
 ``net.is_leader()``; here tracing is process-global since all parties
 share the process).  Additionally wraps the region in
 ``jax.profiler.TraceAnnotation``-compatible ``jax.named_scope`` so the
-spans show up in TPU profiler traces.
+spans show up in device profiler traces.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Per-phase COLD compile cost of the flagship phased prover.
 
-Round-4 failed its driver run because the full-config compile grew from
-647 s to ~2,400 s (VERDICT r4 weak #1).  This script measures where that
-time goes: it lowers + compiles phased executables SEPARATELY with the
+Every chip call may start with no compiled code, so cold compile time is
+set-up cost.  This script measures where that time goes: it lowers + compiles phased executables SEPARATELY with the
 persistent cache disabled (or pointed at a throwaway dir) and prints
 per-phase wall seconds, without running any device math (argument shapes
 come from ``jax.eval_shape`` via ``phase_example_args``).
@@ -43,12 +42,6 @@ def main() -> None:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
-    else:
-        from scalable_collaborative_zksnark_tpu.utils.benchlib import (
-            ensure_accelerator,
-        )
-
-        ensure_accelerator()
     import jax
 
     if args.cache:
@@ -56,8 +49,8 @@ def main() -> None:
             enable_compile_cache,
         )
 
-        enable_compile_cache(Path(args.cache))
-    os.environ.setdefault("SCZK_SRS_CACHE", str(REPO / ".jax_cache" / "srs"))
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = args.cache
+        enable_compile_cache()
 
     from scalable_collaborative_zksnark_tpu.hyperplonk import (
         packed_proving_parameters,

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Per-phase / per-primitive warm timing of the flagship prover on TPU.
+"""Per-phase / per-primitive warm timing of the flagship prover on the GPU.
 
 Times each phased executable of ``dhyperplonk_phased`` in isolation
-(warm, barrier-synced, best of --reps) plus the primitive building
-blocks (MSM at protocol sizes, the ragged opening chains, the MXU
+(warm, block_until_ready-synced, best of --reps) plus the primitive building
+blocks (MSM at protocol sizes, the ragged opening chains, the int8
 sumcheck phase, the d_msm leader reduce) so optimization targets real
-numbers instead of span guesses.  Companion of VERDICT r3 item 1.
+numbers instead of span guesses.
 
 Usage: python scripts/profile_phases.py [--n 16] [--l 8] [--reps 5]
 """
@@ -35,24 +35,16 @@ def main() -> None:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
-    else:
-        from scalable_collaborative_zksnark_tpu.utils.benchlib import (
-            ensure_accelerator,
-        )
-
-        ensure_accelerator()
     import os
 
     import jax
     import jax.numpy as jnp
 
     from scalable_collaborative_zksnark_tpu.utils.benchlib import (
-        barrier,
         enable_compile_cache,
     )
 
-    enable_compile_cache(REPO / ".jax_cache")
-    os.environ.setdefault("SCZK_SRS_CACHE", str(REPO / ".jax_cache" / "srs"))
+    enable_compile_cache()
 
     from scalable_collaborative_zksnark_tpu.hyperplonk import (
         packed_proving_parameters,
@@ -81,13 +73,13 @@ def main() -> None:
     def timeit(name, fn, *fargs):
         t0 = time.time()
         out = fn(*fargs)
-        barrier(out)
+        jax.block_until_ready(out)
         compile_s = time.time() - t0
         best = float("inf")
         for _ in range(args.reps):
             t0 = time.time()
             out = fn(*fargs)
-            barrier(out)
+            jax.block_until_ready(out)
             best = min(best, time.time() - t0)
         print(f"{name:34s} warm {best*1e3:9.1f} ms   (first {compile_s:6.1f} s)")
         return out

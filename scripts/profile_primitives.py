@@ -27,13 +27,10 @@ def main() -> None:
     args = ap.parse_args()
 
     from scalable_collaborative_zksnark_tpu.utils.benchlib import (
-        barrier,
         enable_compile_cache,
-        ensure_accelerator,
     )
 
-    ensure_accelerator()
-    enable_compile_cache(Path(__file__).resolve().parent.parent / ".jax_cache")
+    enable_compile_cache()
 
     import jax
 
@@ -149,13 +146,13 @@ def main() -> None:
         jfn = jax.jit(fn)
         t0 = time.time()
         out = jfn()
-        barrier(out)
+        jax.block_until_ready(out)
         cold = time.time() - t0
         best = float("inf")
         for _ in range(2):
             t0 = time.time()
             out = jfn()
-            barrier(out)
+            jax.block_until_ready(out)
             best = min(best, time.time() - t0)
         print(f"{name:18s} warm {best*1e3:9.1f} ms   (cold {cold:6.1f} s)")
 

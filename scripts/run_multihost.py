@@ -4,23 +4,25 @@
 The reference drives real clusters with shell orchestration
 (`/root/reference/hack/run-hyperplonk/run-servers.sh`,
 `prepare-server.sh`: one process per party over a TCP mesh).  The
-TPU-native equivalent is one JAX process per HOST, all joined into a
-single device mesh via ``jax.distributed``; the N = 8l MPC parties are
-a sharded *array axis* laid over every chip of every host, and the
-protocol's cross-party movement lowers to ICI/DCN collectives.
+equivalent here is JAX processes joined into a single device mesh via
+``jax.distributed``; the N = 8l MPC parties are a sharded *array axis*
+laid over every GPU of every process, and the protocol's cross-party
+movement lowers to collectives (NCCL).
 
-On a real pod each host runs, e.g.::
+Each process must own its GPUs (a JAX process reserves most of a card's
+memory when it starts).  One process per host drives all of that host's
+cards; one process per card passes ``--local-device-ids``::
 
     python scripts/run_multihost.py \
         --coordinator 10.0.0.1:8476 --num-processes 4 --process-id $I \
-        --n 16 --l 8
+        --local-device-ids $I --n 16 --l 8
 
 and process 0 prints the per-party prove time + comm totals.
 
 ``--local-demo`` validates the whole multi-process path on one machine:
 it spawns 2 coordinated CPU processes with 4 virtual devices each (an
-8-device global mesh) and runs a tiny prove — the same code path a pod
-run takes, minus real ICI.
+8-device global mesh) and runs a tiny prove — the same code path a
+multi-GPU run takes, minus real NVLink/NCCL; it never opens a GPU.
 
 Reference parity: hack/run-hyperplonk/handle_server.sh:26-34 (scale
 envelope), mpc-net/src/multi.rs:273-362 (process mesh bring-up).
@@ -68,6 +70,7 @@ def run(args) -> None:
             coordinator_address=args.coordinator,
             num_processes=args.num_processes,
             process_id=args.process_id,
+            local_device_ids=args.local_device_ids,
         )
     from jax.sharding import Mesh
 
@@ -147,7 +150,7 @@ def local_demo(args) -> None:
         env = dict(
             os.environ,
             XLA_FLAGS="--xla_force_host_platform_device_count=4",
-            SCZK_FORCE_CPU="1",
+            JAX_PLATFORMS="cpu",
         )
         procs.append(
             subprocess.Popen(
@@ -176,6 +179,8 @@ def main() -> None:
                     help="host:port of process 0 (jax.distributed)")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--local-device-ids", type=int, nargs="*", default=None,
+                    help="GPUs this process owns (default: all visible)")
     ap.add_argument("--n", type=int, default=5, help="log2 gate count")
     ap.add_argument("--l", type=int, default=1, help="packing factor (N = 8l)")
     ap.add_argument("--repeat", type=int, default=2)
@@ -189,10 +194,6 @@ def main() -> None:
     if args.local_demo:
         local_demo(args)
         return
-    if os.environ.get("SCZK_FORCE_CPU"):
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     run(args)
 
 

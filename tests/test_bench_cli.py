@@ -38,8 +38,8 @@ def test_bench_smoke_emits_metric_line():
 
 def test_bench_conformance_digest_pinned():
     """--conformance on the CPU backend must match the pinned digest —
-    the same pin the driver checks on real TPU hardware (MXU/Pallas
-    bit-exactness; VERDICT r3 item 7)."""
+    the same pin chip_smoke.py checks on the GPU (bit-exactness of the
+    GPU arithmetic)."""
     out = subprocess.run(
         [sys.executable, str(REPO / "bench.py"), "--conformance", "--cpu"],
         capture_output=True,

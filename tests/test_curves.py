@@ -60,3 +60,26 @@ def test_generators_valid():
     assert hc.g2_is_on_curve(hc.G2_GEN)
     assert hc.g1_mul(hc.G1_GEN, hc.R) is None
     assert hc.g2_mul(hc.G2_GEN, hc.R) is None
+
+
+def test_scalar_mul_plain_ladder_broadcasts(monkeypatch, pts):
+    """The ladder the GPU runs (no native FFI): points broadcast against a
+    wider scalar batch, as the c_open proof MSMs call it."""
+    from scalable_collaborative_zksnark_tpu import backend
+    from scalable_collaborative_zksnark_tpu.curves.g1 import Curve
+    from scalable_collaborative_zksnark_tpu.fields.config import int_to_limbs
+    from scalable_collaborative_zksnark_tpu.fields.fr import get_field
+
+    monkeypatch.setattr(backend, "native_ffi", lambda: None)
+    C = Curve("bls12_381_g1_plain", get_field("bls12_381_fq"), 4,
+              get_field("bls12_381_fr"))
+    P = jax.tree.map(lambda a: a.reshape(1, 2, -1), C.from_affine_ints(pts[:2]))
+    ks = [[3, 5], [7, 0]]  # [2, 2] scalars vs [1, 2] points
+    sc = jax.numpy.asarray(
+        np.stack([[int_to_limbs(k, 1) for k in row] for row in ks]))
+    out = C.scalar_mul(P, sc)
+    assert out.x.shape == (2, 2, 24)
+    got = C.to_affine_ints(out)
+    want = [hc.g1_mul(pts[j], ks[i][j]) if ks[i][j] else None
+            for i in range(2) for j in range(2)]
+    assert got == want

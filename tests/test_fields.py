@@ -125,9 +125,9 @@ def test_encode_decode_random():
 def test_ffi_vs_pure_paths():
     """The native FFI kernels and the pure-JAX limb path must agree.
 
-    The pure path is what runs on TPU; the FFI path is what runs on CPU
-    (fields/ffi.py) — divergence would mean CPU tests no longer validate
-    the TPU arithmetic.
+    The pure path is what runs on the GPU; the FFI path is what runs on
+    CPU (fields/ffi.py) — divergence would mean CPU tests no longer
+    validate the GPU arithmetic.
     """
     from scalable_collaborative_zksnark_tpu.fields import ffi
 
@@ -155,3 +155,36 @@ def test_ffi_vs_pure_paths():
     subs = F.array_to_ints(got["sub"])
     for i in range(len(xs)):
         assert subs[i] == (xs[i] - ys[i]) % F.p
+
+
+@pytest.mark.parametrize(
+    "name,op",
+    [("bls12_381_fr", "add"), ("bls12_381_fr", "sub"), ("bls12_381_fr", "mul"),
+     ("bls12_381_fq", "add"), ("bls12_381_fq", "sub")],
+)
+def test_gpu_path_unrolled_ops_vs_ints(monkeypatch, name, op):
+    """The plain arithmetic the GPU runs (limb loops unrolled at trace
+    time, no native FFI) vs Python ints.  A fresh Field keeps the jit
+    caches of the CPU-path instances out of it.  (The Fq multiply is
+    covered by the point-kernel tests: its unrolled XLA:CPU compile
+    takes minutes.)"""
+    from scalable_collaborative_zksnark_tpu import backend
+    from scalable_collaborative_zksnark_tpu.fields.config import FIELDS
+    from scalable_collaborative_zksnark_tpu.fields.fr import Field
+
+    monkeypatch.setattr(backend, "native_ffi", lambda: None)
+    monkeypatch.setattr(backend, "unrolled_limbs", lambda: True)
+    F = Field(FIELDS[name])
+    assert not F._scan_form()
+    xs = rand_ints(F, 29, 21) + [0, 1, F.p - 1]
+    ys = rand_ints(F, 29, 22) + [F.p - 1, 0, F.p - 1]
+    a, b = F.array_from_ints(xs), F.array_from_ints(ys)
+    ref = {"add": lambda x, y: (x + y) % F.p,
+           "sub": lambda x, y: (x - y) % F.p,
+           "mul": lambda x, y: x * y % F.p}[op]
+    got = F.array_to_ints(getattr(F, op)(a, b))
+    assert list(got) == [ref(x, y) for x, y in zip(xs, ys)]
+    if op == "mul":  # the unrolled and scan CIOS are the same schedule
+        np.testing.assert_array_equal(
+            np.asarray(F._mul_unrolled(a, b)), np.asarray(F._mul_scan(a, b))
+        )

@@ -93,7 +93,7 @@ def test_d_msm_on_shares():
 
 
 def test_bucket_serial_msm_vs_oracle():
-    """The TPU bucket-serial Pippenger (pure-JAX path) must match the
+    """The bucket-serial Pippenger (pure-JAX path) must match the
     native oracle, including zero scalars, infinity inputs, duplicate
     points (bucket is_dbl path), and both window sizes."""
     from scalable_collaborative_zksnark_tpu.primitives.msm import _msm_1d_buckets
@@ -130,7 +130,7 @@ def test_bucket_serial_msm_vs_oracle():
 
 
 def test_msm_ragged_vs_oracle():
-    """msm_ragged's segmented bucket core (the TPU path — CPU normally
+    """msm_ragged's segmented bucket core (a pure-JAX path — CPU normally
     short-circuits to the FFI) must match the host oracle across ragged
     sizes, batch dims, broadcast bases, and chunk splitting."""
     from unittest import mock

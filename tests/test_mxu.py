@@ -4,7 +4,7 @@ Every operation is checked bit-exactly against the Field limb oracle
 (fields/fr.py) on random AND adversarial inputs (0, 1, p-1, all-max
 limbs of intermediate redundancy).  The matmul forms are backend
 independent — these tests run them on CPU with the same int32
-semantics the TPU MXU uses.
+semantics the GPU's int8 matrix products use.
 """
 
 import numpy as np

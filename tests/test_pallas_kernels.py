@@ -1,204 +1,136 @@
-"""Pallas kernel conformance on CPU via the interpreter.
+"""The CUDA field and point kernels (cuda_kernels.py) on the CPU.
 
-The fused G1 point kernels and tiled field kernels are TPU Mosaic
-kernels; ``SCZK_PALLAS_INTERPRET=1`` runs the same kernel bodies under
-the pallas interpreter so CI (CPU-only) covers their math.  Oracle:
-the native C++ host library (same as the curve tests).
+The kernels are CUDA, which has no interpret mode; their code
+(native/gpu_kernels.h) is built for the CPU as well
+(native/host_kernels.cc), so the default suite checks the kernels'
+arithmetic here against Python ints, the plain jnp form and the native
+oracle.  The wrapper's shapes, the kernel/plain
+choice and the window combine / bucket reduce that run on the point ops
+are covered here too; the compiled kernels are checked on the card by
+tests/test_gpu.py.
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from scalable_collaborative_zksnark_tpu import backend
 from scalable_collaborative_zksnark_tpu import native as no
+from scalable_collaborative_zksnark_tpu import cuda_kernels
 from scalable_collaborative_zksnark_tpu.curves.g1 import (
     BLS12_381_G1_GEN,
-    PointJ,
     bls12_381_g1,
 )
+from scalable_collaborative_zksnark_tpu.utils import kernel_check
 
 
-@pytest.fixture()
-def interpret_mode():
-    os.environ["SCZK_PALLAS_INTERPRET"] = "1"
-    yield
-    del os.environ["SCZK_PALLAS_INTERPRET"]
-
-
-def _mk_points(cv, n, seed=3):
-    ks = [(seed * i * i + i + 2) for i in range(1, n + 1)]
-    host = [no.g1_mul(BLS12_381_G1_GEN, k) for k in ks]
-    return host, cv.from_affine_ints(host)
-
-
-def _case_points(cv, n=9):
-    h1, _ = _mk_points(cv, n, 3)
-    h2, _ = _mk_points(cv, n, 7)
-    # make interesting cases: equal pair (double), cancel pair, infinities
-    h2[0] = h1[0]
-    h2[1] = (h1[1][0], (-h1[1][1]) % no.P)
-    h2[2] = None
-    h1[3] = None
-    return h1, cv.from_affine_ints(h1), h2, cv.from_affine_ints(h2)
-
-
-def test_msm_accumulate_kernel_vs_oracle(interpret_mode):
-    """Default-suite coverage of the MSM hot kernel (VERDICT weak #4).
-
-    ``add_masked`` is THE bucket-serial MSM accumulate step
-    (msm.py -> Curve.add_mixed_masked), and its `_add_t` body embeds
-    the double formula and every complete-case select — so this one
-    kernel covers the whole fused point-op surface the TPU hot path
-    runs.  One op only: interpret-mode cost is XLA:CPU *compile* of
-    the ~16-mul CIOS graph (~2 min on this 1-core box), not
-    simulation, so each extra op costs the same again; the remaining
-    three ops run under SCZK_SLOW_TESTS below.
-    """
+@pytest.mark.parametrize("op", cuda_kernels.OPS)
+def test_point_kernel_host_build_vs_oracle(op):
+    """Each kernel's formula code: bit-exact vs the plain jnp form, and
+    vs the native oracle on the planted doubling, cancel and infinity
+    lanes plus generic ones."""
     if not no.available():
         pytest.skip("native oracle unavailable")
-    from scalable_collaborative_zksnark_tpu.curves.pallas_g1 import point_op
-
     cv = bls12_381_g1()
-    h1, p1, h2, p2 = _case_points(cv)
-    want = [no.g1_add(a, b) for a, b in zip(h1, h2)]
-    mask = jnp.asarray([1, 0, 1, 0, 1, 0, 1, 0, 1], jnp.uint32)
-    x, y, z = point_op("add_masked", cv.fq.spec.name, (*p1, *p2), mask=mask)
-    got = cv.to_affine_ints(PointJ(x, y, z))
-    want_m = [w if m else a for a, w, m in zip(h1, want, mask.tolist())]
-    assert got == want_m
+    p1, p2a, p2j, mask, h1, h2 = kernel_check.sample_points(cv, 40, seed=2)
+    args = kernel_check.op_args(op, p1, p2a, p2j, mask)
+    got = kernel_check.run_kernel(cv, op, *args, host=True)
+    want = kernel_check.run_plain(cv, op, *args)
+    assert kernel_check.mismatches(op, got, want) == 0
+    kernel_check.check_oracle(cv, op, got, h1, h2, np.asarray(mask))
 
 
-def test_point_kernels_vs_oracle(interpret_mode):
-    if not os.environ.get("SCZK_SLOW_TESTS"):
-        pytest.skip(
-            "each op costs ~1-2.5 min of XLA:CPU compile on this 1-core "
-            "box; add_masked (the MSM hot kernel, whose body embeds the "
-            "others' formulas) runs by default above — set "
-            "SCZK_SLOW_TESTS=1 for the remaining ops"
-        )
-    if not no.available():
-        pytest.skip("native oracle unavailable")
-    from scalable_collaborative_zksnark_tpu.curves.pallas_g1 import point_op
-
-    cv = bls12_381_g1()
-    h1, p1, h2, p2 = _case_points(cv)
-
-    fq = cv.fq.spec.name
-    # general add
-    want = [no.g1_add(a, b) for a, b in zip(h1, h2)]
-    x, y, z = point_op("add", fq, (*p1, *p2))
-    got = cv.to_affine_ints(PointJ(x, y, z))
-    assert got == want
-
-    # double
-    x, y, z = point_op("double", fq, tuple(p1))
-    got = cv.to_affine_ints(PointJ(x, y, z))
-    assert got == [no.g1_add(a, a) for a in h1]
-
-    # mixed add (p2 affine by construction)
-    x, y, z = point_op("add_mixed", fq, (*p1, *p2))
-    got = cv.to_affine_ints(PointJ(x, y, z))
-    assert got == want
-
-    # masked mixed add runs in the default suite above
-
-
-def test_field_kernels_vs_ints(interpret_mode):
-    from scalable_collaborative_zksnark_tpu.fields import pallas_fr
+@pytest.mark.parametrize("name", ["bls12_381_fr", "bls12_381_fq"])
+@pytest.mark.parametrize("op", cuda_kernels.FIELD_OPS)
+def test_field_kernel_host_build_vs_ints(name, op):
+    """The field kernels' code (host build) vs Python ints and the plain
+    limb form, including 0, 1, p-1 and a broadcast operand."""
     from scalable_collaborative_zksnark_tpu.fields.fr import get_field
 
-    F = get_field("bls12_381_fr")
-    rng = np.random.RandomState(5)
-    xs = [int.from_bytes(rng.bytes(31), "little") % F.p for _ in range(10)]
-    ys = [int.from_bytes(rng.bytes(31), "little") % F.p for _ in range(10)]
+    F = get_field(name)
+    rng = np.random.RandomState(4)
+    xs = [int.from_bytes(rng.bytes(48), "little") % F.p for _ in range(29)]
+    ys = [int.from_bytes(rng.bytes(48), "little") % F.p for _ in range(29)]
     xs += [0, 1, F.p - 1]
     ys += [F.p - 1, 0, F.p - 1]
+    ref = {"mul": lambda x, y: x * y % F.p, "add": lambda x, y: (x + y) % F.p,
+           "sub": lambda x, y: (x - y) % F.p}[op]
     a, b = F.array_from_ints(xs), F.array_from_ints(ys)
-    assert list(F.array_to_ints(pallas_fr.binary("mul", F.spec, a, b))) == [
-        x * y % F.p for x, y in zip(xs, ys)
-    ]
-    assert list(F.array_to_ints(pallas_fr.binary("add", F.spec, a, b))) == [
-        (x + y) % F.p for x, y in zip(xs, ys)
-    ]
-    assert list(F.array_to_ints(pallas_fr.binary("sub", F.spec, a, b))) == [
-        (x - y) % F.p for x, y in zip(xs, ys)
-    ]
+    out = cuda_kernels.host_field_op(op, name, a, b)
+    assert list(F.array_to_ints(out)) == [ref(x, y) for x, y in zip(xs, ys)]
+    assert kernel_check.field_mismatches(out, F.plain(op, a, b)) == 0
+    kernel_check.check_field_ints(F, op, a, b, out)
+    got = F.array_to_ints(cuda_kernels.host_field_op(op, name, a, b[5]))
+    assert list(got) == [ref(x, ys[5]) for x in xs]
 
 
-def test_fused_sumcheck_phase_vs_jnp(interpret_mode):
-    """The fused full-phase sumcheck-product kernel must emit the exact
-    canonical messages and folded values of the unfused jnp round loop."""
-    if not os.environ.get("SCZK_SLOW_TESTS"):
-        pytest.skip("~2-4 min of XLA:CPU kernel compile; covered on real "
-                    "TPU by bench.py --conformance (set SCZK_SLOW_TESTS=1)")
-    from scalable_collaborative_zksnark_tpu.fields.fr import get_field
-    from scalable_collaborative_zksnark_tpu.primitives import pallas_sumcheck as psc
-    from scalable_collaborative_zksnark_tpu.primitives.sumcheck import (
-        _rounds_product,
-    )
+def test_point_op_wrapper_shapes(monkeypatch):
+    """point_op flattens any batch shape to [m, 24] lanes, gives double a
+    second operand it never reads, passes the mask as uint32 lanes and
+    restores the batch shape (the FFI call itself is faked)."""
+    seen = {}
 
-    F = get_field("bls12_381_fr")
-    B, M = 2, 256
-    f = F.random((B, M), 11)
-    g = F.random((B, M), 12)
-    ch = F.random((M.bit_length() - 1 + 3,), 13)
+    def fake_ffi_call(target, out_types, vmap_method=None):
+        def run(*flat, op):
+            seen.update(target=target, op=int(op), vmap=vmap_method,
+                        shapes=[a.shape for a in flat],
+                        outs=[o.shape for o in out_types])
+            return [flat[0] + 1, flat[1], flat[2], flat[6]]
 
-    k_msgs, k_f, k_g = psc.product_phase(F, f, g, ch, 1)
-    j_msgs, j_f, j_g = _rounds_product(F, f, g, ch, 1, M.bit_length() - 1)
-    assert len(k_msgs) == len(j_msgs)
-    for a, b in zip(k_msgs, j_msgs):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_array_equal(np.asarray(k_f), np.asarray(j_f))
-    np.testing.assert_array_equal(np.asarray(k_g), np.asarray(j_g))
+        return run
 
-
-def test_sumcheck_peel_then_fuse(interpret_mode, monkeypatch):
-    """Tables above the fused kernel's exact-u32 bound peel unfused
-    rounds then fuse the tail — bitwise equal to the pure path."""
-    if not os.environ.get("SCZK_SLOW_TESTS"):
-        pytest.skip("~2-4 min of XLA:CPU kernel compile; covered on real "
-                    "TPU by bench.py --conformance (set SCZK_SLOW_TESTS=1)")
-    from scalable_collaborative_zksnark_tpu.fields.fr import get_field
-    from scalable_collaborative_zksnark_tpu.primitives import (
-        pallas_sumcheck as psc,
-    )
-    from scalable_collaborative_zksnark_tpu.primitives.sumcheck import (
-        sumcheck_product,
-    )
-
-    F = get_field("bls12_381_fr")
-    monkeypatch.setattr(psc, "MAX_M", 128)
-    f = F.random((1, 512), 21)
-    g = F.random((1, 512), 22)
-    ch = F.random((12,), 23)
-    fused = sumcheck_product(F, f, g, ch)
-    monkeypatch.setenv("SCZK_NO_PALLAS", "1")
-    ref = sumcheck_product(F, f, g, ch)
-    np.testing.assert_array_equal(np.asarray(fused), np.asarray(ref))
+    monkeypatch.setattr(cuda_kernels, "ensure_registered", lambda: None)
+    monkeypatch.setattr(jax.ffi, "ffi_call", fake_ffi_call)
+    L = 24
+    x = jnp.arange(2 * 3 * L, dtype=jnp.uint32).reshape(2, 3, L)
+    mask = jnp.asarray([[True, False, True], [False, True, True]])
+    out = cuda_kernels.point_op("add_reset_lazy", cuda_kernels.FQ, (x,) * 6, mask=mask)
+    assert seen["target"] == cuda_kernels.TARGET
+    assert seen["op"] == cuda_kernels.OPS.index("add_reset_lazy")
+    assert seen["vmap"] == "broadcast_all"
+    assert seen["shapes"] == [(6, L)] * 6 + [(6,)]
+    assert seen["outs"] == [(6, L)] * 3 + [(6,)]
+    assert out[0].shape == (2, 3, L) and out[3].shape == (2, 3)
+    np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(x) + 1)
+    np.testing.assert_array_equal(np.asarray(out[3]), np.asarray(mask))
+    out = cuda_kernels.point_op("double", cuda_kernels.FQ, (x,) * 3)
+    assert seen["shapes"] == [(6, L)] * 6 + [(6,)] and len(out) == 3
 
 
-def test_add_reset_kernel_vs_oracle(interpret_mode):
-    """The dense-MSM scan step kernel: same ? acc + P2(mixed) : P2."""
-    if not no.available():
-        pytest.skip("native oracle unavailable")
-    from scalable_collaborative_zksnark_tpu.curves.pallas_g1 import point_op
+@pytest.mark.parametrize("platform,curve,kernel", [
+    ("cpu", "bls12_381", False), ("gpu", "bls12_381", True),
+    ("gpu", "bls12_377", False),
+])
+def test_curve_kernel_choice(monkeypatch, platform, curve, kernel):
+    """Curve ops take the fused kernel exactly when the backend module
+    says so (the GPU) and the kernel has the curve (BLS12-381), else the
+    plain formula."""
+    from scalable_collaborative_zksnark_tpu.curves import g1
 
-    cv = bls12_381_g1()
-    h1, p1, h2, p2 = _case_points(cv)
-    want_add = [no.g1_add(a, b) for a, b in zip(h1, h2)]
-    same = jnp.asarray([1, 0, 1, 0, 1, 0, 1, 0, 1], jnp.uint32)
-    x, y, z = point_op("add_reset", cv.fq.spec.name, (*p1, *p2), mask=same)
-    got = cv.to_affine_ints(PointJ(x, y, z))
-    want = [w if m else b for b, w, m in zip(h2, want_add, same.tolist())]
-    assert got == want
+    calls = []
+
+    def fake_point_op(op, fq_name, coords, mask=None):
+        calls.append((op, len(coords), mask is not None))
+        out = tuple(coords[:3])
+        return out + (jnp.zeros(coords[0].shape[:-1], bool),) if (
+            op == "add_reset_lazy") else out
+
+    monkeypatch.setattr(backend, "platform", lambda: platform)
+    monkeypatch.setattr(cuda_kernels, "point_op", fake_point_op)
+    cv = getattr(g1, f"{curve}_g1")()
+    p = cv.infinity((2,))
+    same = jnp.asarray([True, False])
+    assert (cv._kernel("double", p) is not None) == kernel
+    assert (cv._kernel("add_reset_lazy", p, p, mask=same) is not None) == kernel
+    want = [("double", 3, False),
+            ("add_reset_lazy", 6, True)] if kernel else []
+    assert calls == want
 
 
-def test_horner_kernel_and_bucket_totals_vs_oracle(interpret_mode):
-    """The fused window-Horner kernel and the weighted bucket reduce
-    (XLA prefix-scan form) vs the native host oracle."""
+def test_horner_kernel_and_bucket_totals_vs_oracle():
+    """The window Horner combine and the weighted bucket reduce (XLA
+    scan / prefix-scan forms over the point ops) vs the native oracle."""
     if not no.available():
         pytest.skip("native oracle unavailable")
     from scalable_collaborative_zksnark_tpu.primitives.msm import (
@@ -225,16 +157,7 @@ def test_horner_kernel_and_bucket_totals_vs_oracle(interpret_mode):
         for _ in range(16)
     ]
     acc4 = jax.tree.map(lambda a: a.reshape(2, 2, 4, -1), cv.from_affine_ints(binds))
-    import scalable_collaborative_zksnark_tpu.primitives.msm as msm_mod
-
     got = cv.to_affine_ints(_weighted_bucket_totals(cv, acc4))
-    # the serial-bucket kernel (grid over K, lanes = W*C) must agree
-    old_gate = msm_mod.SERIAL_REDUCE_MIN_LANES
-    try:
-        msm_mod.SERIAL_REDUCE_MIN_LANES = 1
-        got_serial = cv.to_affine_ints(_weighted_bucket_totals(cv, acc4))
-    finally:
-        msm_mod.SERIAL_REDUCE_MIN_LANES = old_gate
     i = 0
     for w in range(2):
         for c in range(2):
@@ -246,68 +169,4 @@ def test_horner_kernel_and_bucket_totals_vs_oracle(interpret_mode):
                 t = no.g1_mul(p, k)
                 want = t if want is None else no.g1_add(want, t)
             assert got[i] == want, (w, c)
-            assert got_serial[i] == want, ("serial", w, c)
             i += 1
-
-
-def test_horner_chunked_vs_oracle(interpret_mode):
-    """The hierarchical (VMEM-budgeted) window combine: W split into
-    chunks, partials recombined with window width c*Wc plus MSB identity
-    padding.  ~9 min of XLA:CPU kernel compiles, so gated; the TPU bench
-    exercises the same path at the ragged-open shapes every round."""
-    if not os.environ.get("SCZK_SLOW_TESTS"):
-        pytest.skip("set SCZK_SLOW_TESTS=1 for the chunked-horner case")
-    if not no.available():
-        pytest.skip("native oracle unavailable")
-    from scalable_collaborative_zksnark_tpu.curves import pallas_g1 as pg
-    from scalable_collaborative_zksnark_tpu.primitives.msm import _horner_windows
-
-    cv = bls12_381_g1()
-    rng = np.random.RandomState(11)
-    W, B = 5, 2
-    pts_int = [
-        no.g1_mul(BLS12_381_G1_GEN, int(rng.randint(1, 10**9)))
-        for _ in range(W * B)
-    ]
-    tot = jax.tree.map(lambda a: a.reshape(W, B, -1), cv.from_affine_ints(pts_int))
-    old = pg.HORNER_VMEM_BUDGET
-    try:
-        pg.HORNER_VMEM_BUDGET = 3 * 24 * 8 * 4 * 2  # 2 windows/launch -> 3 chunks
-        got = cv.to_affine_ints(_horner_windows(cv, tot, 2))
-    finally:
-        pg.HORNER_VMEM_BUDGET = old
-    for b in range(B):
-        want = None
-        for w in range(W):
-            t = no.g1_mul(pts_int[B * w + b], 1 << (2 * w))
-            want = t if want is None else no.g1_add(want, t)
-        assert got[b] == want, b
-
-
-def test_scalar_mul_ladder_kernel_vs_oracle(interpret_mode):
-    """One-launch double-and-add ladder kernel (short scalars keep the
-    interpreter fast; the full 256-bit path is covered on hardware by
-    bench.py --conformance)."""
-    if not os.environ.get("SCZK_SLOW_TESTS"):
-        pytest.skip("~2-4 min of XLA:CPU kernel compile; covered on real "
-                    "TPU by bench.py --conformance (set SCZK_SLOW_TESTS=1)")
-    if not no.available():
-        pytest.skip("native oracle unavailable")
-    from scalable_collaborative_zksnark_tpu.curves import pallas_g1 as pg
-    from scalable_collaborative_zksnark_tpu.fields.config import int_to_limbs
-
-    cv = bls12_381_g1()
-    rng = np.random.RandomState(12)
-    pts_int = [no.g1_mul(BLS12_381_G1_GEN, int(rng.randint(1, 10**9))) for _ in range(3)]
-    pts_int.append(None)
-    P = cv.from_affine_ints(pts_int)
-    ks = [int(rng.randint(0, 1 << 30)) for _ in range(3)] + [7]
-    ks[1] = 0
-    sc = jnp.asarray(np.stack([int_to_limbs(k, 2) for k in ks]))
-    x, y, z = pg.scalar_mul(cv.fq.spec.name, (P.x, P.y, P.z), sc)
-    got = cv.to_affine_ints(PointJ(x, y, z))
-    want = [
-        no.g1_mul(p, k) if (p is not None and k) else None
-        for p, k in zip(pts_int, ks)
-    ]
-    assert got == want
